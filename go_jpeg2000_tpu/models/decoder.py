@@ -16,6 +16,7 @@ import numpy as np
 
 from ..codestream.header import Header, TilePartInfo
 from ..codestream.parser import ParseError, Parser
+from ..native.loader import NativeUnavailable
 from ..ops import dwt, mct, quant as quant_ops, t1
 from ..options import (ColorSpace, Config, Format, Metadata,
                        ComponentMetadata, ProgressionOrder)
@@ -140,6 +141,8 @@ def _decode_tiles(header: Header, tile_parts: List[TilePartInfo],
         tile = geo.build_tile(header, t_idx, parts[0] if parts[0].coding_style else None)
         try:
             comps = _decode_tile(header, tile, parts, codestream, config)
+        except NativeUnavailable:
+            raise
         except Exception:
             # per-tile containment (SURVEY §5.3): a corrupt tile must not
             # poison its neighbors — its area stays zero-filled.  Single-tile
@@ -464,14 +467,10 @@ def _decode_batch_fused(parsed, header: Header, tile: geo.Tile,
     if config.quality_layers not in (None, 0) and config.quality_layers < 1:
         return None
     lossless = header.coding_style.transform == 1
-    try:
-        from ..native import loader
-        if not loader.available():
-            return None
-        from . import fused_encode
-        plan = fused_encode.plan_for(header, tile, lossy=not lossless)
-    except Exception:
-        return None
+    from ..native import loader
+    from . import fused_encode
+    loader.require()
+    plan = fused_encode.plan_for(header, tile, lossy=not lossless)
     if plan is None:
         return None
     for hdr_i, tile_parts, _cstream, _ in parsed:
@@ -530,7 +529,7 @@ def _decode_batch_fused(parsed, header: Header, tile: geo.Tile,
                 kind=dwt.REV53 if lossless else dwt.IRR97)
             out = fn(_jax.device_put(qinfo), _jax.device_put(pool),
                      _jax.device_put(woff.astype(np.int32)))
-            handles.append(fetch.split_async(out))
+            handles.append(fetch.fetch_async(out))
             continue
         if not lossless:
             return None   # lossy fallback: general path does host dequant

@@ -1,4 +1,4 @@
-"""Fused device EBCOT encode: image batch -> MQ codeword segments on TPU.
+"""Fused device EBCOT encode: image batch -> MQ codeword segments on device.
 
 One jitted XLA program runs DC shift + MCT + multi-level 5/3 DWT +
 code-block split + the Tier-1 decision kernel (ops/ebcot_device.py) +
@@ -82,7 +82,6 @@ def _ebcot_fn(n: int, c: int, h: int, w: int, levels: int, use_mct: bool,
     steps = t_cap // U
 
     def fn(batch_flat):
-        from .transforms import _decompose
         batch = batch_flat.reshape(n, c, h, w)
         x = batch.astype(jnp.int32)
         if not signed:
@@ -92,7 +91,7 @@ def _ebcot_fn(n: int, c: int, h: int, w: int, levels: int, use_mct: bool,
             y, u, v = mct.forward_rct(x[:, 0], x[:, 1], x[:, 2])
             rest = [x[:, i] for i in range(3, c)]
             x = jnp.stack([y, u, v] + rest, axis=1)
-        pyr = _decompose(x, levels, dwt.REV53, 0, 0)
+        pyr = dwt.decompose(x, levels, dwt.REV53)
         blocks = fused_encode._extract_blocks(pyr, plan, n, levels)
         B = n * plan.nb
         mags = jnp.abs(blocks)
@@ -129,19 +128,16 @@ def _ebcot_fn(n: int, c: int, h: int, w: int, levels: int, use_mct: bool,
 def _decisions_fn(n: int, c: int, h: int, w: int, levels: int,
                   use_mct: bool, precision: int, signed: bool,
                   plan_key: int, max_planes: int, t_cap: int, cap_dec: int):
-    """Hybrid (ablation path B) device half: transform + Tier-1 decision
+    """Hybrid (path B) device half: transform + Tier-1 decision
     kernel + per-row compaction + dense uint8 decision pool.  The host MQ
-    coder (native/loader.mq_encode_streams) consumes the pooled streams —
-    measured 18.3 Mpix/s on 2 cores vs 6.6 for the full host T1, because
-    context modeling (the decisions) is the host coder's dominant cost
-    (PROFILE.md "EBCOT paths")."""
+    coder (native/loader.mq_encode_streams) consumes the pooled streams;
+    context modeling (the decisions) is the host coder's dominant cost."""
     plan = _PLANS[plan_key]
     hs = np.tile(plan.hs, n)
     ws = np.tile(plan.ws, n)
     bclass = np.tile(plan.bclass, n)
 
     def fn(batch_flat):
-        from .transforms import _decompose
         batch = batch_flat.reshape(n, c, h, w)
         x = batch.astype(jnp.int32)
         if not signed:
@@ -151,7 +147,7 @@ def _decisions_fn(n: int, c: int, h: int, w: int, levels: int,
             y, u, v = mct.forward_rct(x[:, 0], x[:, 1], x[:, 2])
             rest = [x[:, i] for i in range(3, c)]
             x = jnp.stack([y, u, v] + rest, axis=1)
-        pyr = _decompose(x, levels, dwt.REV53, 0, 0)
+        pyr = dwt.decompose(x, levels, dwt.REV53)
         blocks = fused_encode._extract_blocks(pyr, plan, n, levels)
         B = n * plan.nb
         mags = jnp.abs(blocks)
@@ -215,7 +211,8 @@ def fetch_results_hybrid(d: EbcotDispatch
             float(ndec.max(initial=0)) / (d.plan.cbh * d.plan.cbw)),
         _CAP_STATE.get(id(d.plan), (9.0, 0.9))[1])
     blen = min(fused_encode._bucket_words(total, d.cap_pool), d.cap_pool)
-    pool = fetch.gather(fetch.split_async(_slice_fn(0, max(1, blen))(pool_dev)))
+    pool = fetch.gather(
+        fetch.fetch_async(_slice_fn(0, max(1, blen))(pool_dev)))
     ends = np.cumsum(ndec.astype(np.int64))
     offs = ends - ndec
     streams = [bytes(pool[offs[i]:ends[i]].astype(np.uint8))
@@ -267,7 +264,7 @@ def dispatch(batch: np.ndarray, levels: int, use_mct: bool, precision: int,
     meta, pool = fn(flat)
     if hasattr(meta, "copy_to_host_async"):
         meta.copy_to_host_async()
-    return EbcotDispatch((meta, fetch.split_async(pool)), n, plan,
+    return EbcotDispatch((meta, fetch.fetch_async(pool)), n, plan,
                          t_cap, cap_pool)
 
 
@@ -275,7 +272,7 @@ def fetch_results(d: EbcotDispatch) -> Optional[List[t1_py.T1EncodeResult]]:
     """Blocks on the device result; returns per-block T1EncodeResult in
     canonical job order (frame-major), or None on cap overflow."""
     from ..utils import fetch
-    meta_dev, pool_parts = d.out
+    meta_dev, pool_fetch = d.out
     meta = np.asarray(meta_dev)
     lens, ndec, numbps = meta[0], meta[1], meta[2]
     dist = meta[3].view(np.float32)
@@ -285,7 +282,7 @@ def fetch_results(d: EbcotDispatch) -> Optional[List[t1_py.T1EncodeResult]]:
             or int(lens.max(initial=0)) > 2 * d.t_cap + 8):
         return None
     _observe(d.plan, ndec, lens, d.n)
-    pool = fetch.gather(pool_parts)
+    pool = fetch.gather(pool_fetch)
     ends = np.cumsum(lens)
     offs = ends - lens
     out: List[t1_py.T1EncodeResult] = []

@@ -15,12 +15,15 @@ import numpy as np
 from ..ops import t1
 
 
-def _native_available() -> bool:
-    try:
-        from ..native import loader
-        return loader.available()
-    except Exception:
+def _use_native(backend: str) -> bool:
+    """Every backend but "python" codes blocks natively; a library that
+    cannot be built raises (loader.NativeUnavailable) instead of silently
+    dropping to the Python oracle."""
+    if backend == "python":
         return False
+    from ..native import loader
+    loader.require()
+    return True
 
 
 def _encode_ht(job, refinement: bool = False,
@@ -94,9 +97,7 @@ def encode_blocks_batch(jobs: Sequence[Tuple], backend: str = "auto",
     when nothing consumes pass rates (single layer, no rate budget)."""
     from ..utils import markers as mk
     if jobs and (jobs[0][2] & mk.CBSTYLE_HT):
-        use_native = backend == "native" or (backend in ("auto", "device",
-                                                         "hybrid")
-                                             and _native_available())
+        use_native = _use_native(backend)
         if use_native and not ht_refinement:
             from ..native import loader
             import numpy as np
@@ -137,8 +138,7 @@ def encode_blocks_batch(jobs: Sequence[Tuple], backend: str = "auto",
             return out
         return [_encode_ht(j, refinement=ht_refinement,
                            require_exact=ht_require_exact) for j in jobs]
-    use_native = backend == "native" or (backend in ("auto", "device", "hybrid")
-                                         and _native_available())
+    use_native = _use_native(backend)
     if use_native:
         from ..native import loader
         sty_extra = 0 if exact_rates else loader.STY_FAST_RATES
@@ -152,9 +152,7 @@ def decode_blocks_batch(jobs: Sequence[Tuple], backend: str = "auto"
     """jobs: (data, w, h, numbps, num_passes, band, cb_style, segment_lengths)."""
     from ..utils import markers as mk
     if jobs and (jobs[0][6] & mk.CBSTYLE_HT):
-        use_native = backend == "native" or (backend in ("auto", "device",
-                                                         "hybrid")
-                                             and _native_available())
+        use_native = _use_native(backend)
         refined = any(j[4] > 1 for j in jobs)
         if use_native and not refined:
             from ..native import loader
@@ -174,8 +172,7 @@ def decode_blocks_batch(jobs: Sequence[Tuple], backend: str = "auto"
         return [ht.decode_ht_block(bytes(j[0]), j[1], j[2], j[3],
                                    num_passes=j[4], segment_lengths=list(j[7]))
                 for j in jobs]
-    use_native = backend == "native" or (backend in ("auto", "device", "hybrid")
-                                         and _native_available())
+    use_native = _use_native(backend)
     if use_native:
         from ..native import loader
         return loader.decode_blocks(jobs)

@@ -1,15 +1,16 @@
 // Native entropy backend: MQ coder + EBCOT Tier-1, batched across
 // code-blocks with a thread pool.
 //
-// TPU-native equivalent of the reference's hot native surface (the
+// Host-side equivalent of the reference's hot native surface (the
 // amd64/arm64 assembly kernels, /root/reference/internal/dwt/dwt_amd64.s,
 // internal/entropy/t1_amd64.s) and its goroutine block pool
-// (encoder.go:690-742): the DWT runs on the TPU (Pallas/jnp); the
+// (encoder.go:690-742): the DWT runs on the device (jnp); the
 // irreducibly-sequential-per-block MQ/T1 coding runs here, parallel across
 // blocks.  Semantics mirror ops/t1.py (the Python oracle) bit-for-bit and
 // are differentially tested against it.
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 -pthread j2k_native.cpp -o j2k_native.so
+// Built on first use by native/loader.py (g++ -O3 -shared -fPIC -std=c++17
+// -pthread [-march=native]) into native/_build/.
 
 #include <cstdint>
 #include <cstring>
@@ -2237,7 +2238,7 @@ int mq_encode_streams_batch(
 } // extern "C"
 
 // ===========================================================================
-// HT cleanup segment serializer for the TPU field kernel (ops/ht_tpu.py).
+// HT cleanup segment serializer for the device field kernel (ops/ht_tpu.py).
 //
 // The device computes every coding decision data-parallel and emits three
 // unstuffed bit-streams per block (MagSgn, VLC in decode order, MEL events);

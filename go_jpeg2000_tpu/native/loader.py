@@ -1,15 +1,24 @@
 """Native (C++) entropy backend: builds and binds j2k_native.so via ctypes.
 
 The native library parallelizes T1/MQ block coding across code-blocks with a
-thread pool — the TPU-native analog of the reference's goroutine pool
+thread pool — the analog of the reference's goroutine pool
 (/root/reference/encoder.go:690-742) and assembly kernels (dwt_amd64.s,
 t1_amd64.s).  Bit-identical to the Python oracle in ops/t1.py and
 differentially tested against it (tests/test_native.py).
+
+The library is built from the tracked sources into `_build/`, under a name
+keyed by the sources' content hash, the compiler and the host CPU (the build
+uses -march=native).  A library built on another machine, or from other
+sources, therefore never matches and is never loaded: the first process on a
+new host compiles its own.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import List, Optional, Sequence, Tuple
@@ -20,7 +29,13 @@ from ..ops import t1 as t1_py
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "j2k_native.cpp")
-_SO = os.path.join(_HERE, "j2k_native.so")
+_SOURCES = (_SRC, os.path.join(_HERE, "ht_tables.inc"))
+_BUILD_DIR = os.path.join(_HERE, "_build")
+_CXX = "g++"
+_BASE_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+# -march=native is worth ~20% on the block coders; the portable flags are
+# the fallback when the toolchain rejects it
+_FLAG_SETS = (["-march=native", "-funroll-loops"], [])
 
 MAX_PASSES = 160
 MAX_SEGS = 160
@@ -30,45 +45,95 @@ STY_FAST_RATES = 0x100
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_build_failed = False
+_build_error: Optional[str] = None
 
 BAND_CLASS = {"LL": 0, "LH": 0, "HL": 1, "HH": 2}
 
 
-def _build() -> bool:
-    base = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
-    # -march=native is worth ~20% on the block coders; fall back to the
-    # portable build if the toolchain rejects it
-    for extra in (["-march=native", "-funroll-loops"], []):
-        cmd = base + extra + [_SRC, "-o", _SO + ".tmp"]
+class NativeUnavailable(RuntimeError):
+    """The native library could not be built or loaded."""
+
+
+def _host_id() -> str:
+    """What a -march=native build depends on: machine, CPU model and flags."""
+    cpu = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu = "".join(l for l in f
+                          if l.startswith(("model name", "flags")))
+    except OSError:
+        pass
+    return "\n".join([platform.node(), platform.machine(), cpu])
+
+
+def _compiler_id() -> str:
+    try:
+        r = subprocess.run([_CXX, "--version"], capture_output=True,
+                           text=True, timeout=60)
+        return r.stdout.splitlines()[0] if r.stdout else ""
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+def _stamp() -> str:
+    """Build key: sources' content, compiler, flags and host."""
+    h = hashlib.sha256()
+    for path in _SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(repr((_compiler_id(), _BASE_FLAGS, _FLAG_SETS)).encode())
+    h.update(_host_id().encode())
+    return h.hexdigest()[:20]
+
+
+def _so_path(stamp: str) -> str:
+    return os.path.join(_BUILD_DIR, f"j2k_native-{stamp}.so")
+
+
+def _compile(so: str) -> Optional[str]:
+    """Compile the library to `so`; returns None on success, else the
+    compiler's message."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    err = ""
+    for extra in _FLAG_SETS:
+        cmd = [_CXX] + _BASE_FLAGS + extra + [_SRC, "-o", tmp]
         try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-            os.replace(_SO + ".tmp", _SO)
-            return True
-        except Exception:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600)
+        except (OSError, subprocess.SubprocessError) as e:
+            err = f"{' '.join(cmd)}: {e}"
             continue
-    return False
+        if r.returncode == 0:
+            os.replace(tmp, so)
+            for old in glob.glob(os.path.join(_BUILD_DIR, "j2k_native-*.so")):
+                if old != so:
+                    os.remove(old)
+            return None
+        err = f"{' '.join(cmd)}\n{r.stderr.strip()}"
+    return err
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _build_failed
+    global _lib, _build_error
     with _lock:
         if _lib is not None:
             return _lib
-        if _build_failed:
+        if _build_error is not None:
             return None
-        need_build = (not os.path.exists(_SO)
-                      or os.path.getmtime(_SO) < os.path.getmtime(_SRC))
-        if need_build and not _build():
-            _build_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(_SO)
-            if lib.j2k_native_abi_version() != 1:
-                _build_failed = True
+        so = _so_path(_stamp())
+        if not os.path.exists(so):
+            _build_error = _compile(so)
+            if _build_error is not None:
                 return None
-        except Exception:
-            _build_failed = True
+        try:
+            lib = ctypes.CDLL(so)
+            abi = lib.j2k_native_abi_version()
+        except OSError as e:
+            _build_error = f"loading {so}: {e}"
+            return None
+        if abi != 1:
+            _build_error = f"{so}: ABI version {abi}, expected 1"
             return None
         i64p = ctypes.POINTER(ctypes.c_int64)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -137,6 +202,16 @@ def available() -> bool:
     return _load() is not None
 
 
+def require() -> ctypes.CDLL:
+    """The loaded library; raises NativeUnavailable with the compiler's or
+    the loader's message when it cannot be built or loaded."""
+    lib = _load()
+    if lib is None:
+        raise NativeUnavailable(f"native entropy library unavailable: "
+                                f"{_build_error}")
+    return lib
+
+
 def _nthreads() -> int:
     return max(1, os.cpu_count() or 1)
 
@@ -147,9 +222,7 @@ def _ptr(arr: np.ndarray, ctype):
 
 def encode_blocks(jobs: Sequence[Tuple]) -> List[t1_py.T1EncodeResult]:
     """jobs: (coeffs int32 [h,w], band_name, cb_style)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(jobs)
     if n == 0:
         return []
@@ -213,9 +286,7 @@ def encode_blocks(jobs: Sequence[Tuple]) -> List[t1_py.T1EncodeResult]:
 
 def decode_blocks(jobs: Sequence[Tuple]) -> List[np.ndarray]:
     """jobs: (data, w, h, numbps, num_passes, band, cb_style, segment_lengths)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(jobs)
     if n == 0:
         return []
@@ -270,9 +341,7 @@ def decode_blocks(jobs: Sequence[Tuple]) -> List[np.ndarray]:
 def ht_encode_blocks(jobs: Sequence[np.ndarray]):
     """jobs: list of int32 [h, w] coefficient blocks.
     Returns list of (segment_bytes, numbps, umax)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(jobs)
     if n == 0:
         return []
@@ -309,9 +378,7 @@ def ht_encode_blocks(jobs: Sequence[np.ndarray]):
 
 def ht_decode_blocks(jobs: Sequence[Tuple]):
     """jobs: (data_bytes, w, h, numbps).  Returns list of int32 [h, w]."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(jobs)
     if n == 0:
         return []
@@ -353,9 +420,7 @@ def ht_encode_refined_blocks(jobs: Sequence[np.ndarray],
     resid_spp, resid_mrp)) — data = cleanup ++ spp ++ mrp when refined,
     plain cleanup segment otherwise.  Byte-identical to
     ops/ht.encode_refined (tests/test_ht_refinement.py)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(jobs)
     if n == 0:
         return []
@@ -404,9 +469,7 @@ def ht_encode_refined_blocks(jobs: Sequence[np.ndarray],
 def ht_decode_refined_blocks(jobs: Sequence[Tuple]):
     """jobs: (data, w, h, numbps, num_passes, lcup, lref).
     Returns list of int32 [h, w] (truncation-aware, scaled)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(jobs)
     if n == 0:
         return []
@@ -450,9 +513,7 @@ def mq_encode_streams(streams: Sequence[bytes]):
     segments — the host half of the hybrid device-decisions + host-MQ
     EBCOT path (byte-identical to ops/mq.MQEncoder over the same
     decisions)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(streams)
     if n == 0:
         return []
@@ -486,14 +547,12 @@ def ht_serialize_blocks(words: np.ndarray,
                         mel_off: np.ndarray, mel_nw: np.ndarray,
                         mel_bits: np.ndarray,
                         numbps: np.ndarray) -> List[bytes]:
-    """Assemble HT cleanup segments from the TPU field kernel's packed
+    """Assemble HT cleanup segments from the device field kernel's packed
     streams (ops/ht_tpu.py).  `words` is the flat uint32 stream pool;
     per-block stream i lives at words[off[i] : off[i]+nw[i]].
 
     Returns per-block segment bytes (b"" where numbps == 0)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     n = len(numbps)
     if n == 0:
         return []
@@ -537,9 +596,7 @@ def ht_t2_encode_frames(words: np.ndarray,
     `geom` is the dict from models/fused_encode.py::t2_geom (packet walk in
     progression order).  Returns per-frame tile-body bytes (packets only; the
     caller wraps SOT/SOD)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     words = np.ascontiguousarray(words, dtype=np.uint32)
     numbps = np.ascontiguousarray(numbps, dtype=np.int32)
     zbp = np.ascontiguousarray(zbp, dtype=np.int32)
@@ -588,9 +645,7 @@ def ht_t2_decode_frames(data: np.ndarray, frame_off: np.ndarray,
 
     Returns coefficients [n_frames, nb, cbh, cbw] int32 (padded slots), or
     None when a stream needs the general path (npasses != 1, truncation)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     data = np.ascontiguousarray(data, dtype=np.uint8)
     frame_off = np.ascontiguousarray(frame_off, dtype=np.int64)
     coeffs = np.empty((n_frames, nb, cbh, cbw), dtype=np.int32)
@@ -624,9 +679,7 @@ def ht_t2_parse_frames(data: np.ndarray, frame_off: np.ndarray,
     mag_woff int64 [n_frames*nb], mag_nw int32 [n_frames*nb],
     numbps int32 [n_frames*nb]), or None when a stream needs the general
     path."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native backend unavailable")
+    lib = require()
     data = np.ascontiguousarray(data, dtype=np.uint8)
     frame_off = np.ascontiguousarray(frame_off, dtype=np.int64)
     qw_pad, qh_pad = (cbw + 1) // 2, (cbh + 1) // 2

@@ -12,8 +12,8 @@ Filter math parity with the reference (/root/reference/internal/dwt/dwt.go):
   9/7:  four lifting steps (alpha, beta, gamma, delta) + K scaling.
 
 Everything here is shape-static and jit-friendly; the lifting steps are
-masked element-wise updates the XLA fuser turns into a handful of VPU passes.
-A fused Pallas kernel for the 2-D level lives in dwt_pallas.py.
+masked element-wise updates the XLA fuser turns into a handful of
+elementwise kernels per level.
 """
 from __future__ import annotations
 

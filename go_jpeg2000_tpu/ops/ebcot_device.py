@@ -2,10 +2,10 @@
 
 SURVEY hard part #1: the reference's hottest code is the scalar
 significance-propagation walk with inlined MQ
-(/root/reference/internal/entropy/t1_fast5.go:10-899).  A TPU cannot run
-that walk as-is — within one pass, a sample's coding decision depends on
-significance updates from samples visited earlier in the stripe scan.  The
-kernel here removes the walk entirely:
+(/root/reference/internal/entropy/t1_fast5.go:10-899).  A data-parallel
+device cannot run that walk as-is — within one pass, a sample's coding
+decision depends on significance updates from samples visited earlier in
+the stripe scan.  The kernel here removes the walk entirely:
 
 * The scan-order "visited before me" relation for each of the 8 neighbor
   offsets is STATIC given the row-within-stripe r = y & 3 (e.g. W/N/NW
@@ -106,8 +106,8 @@ def _neighbor_state(static_sig, new_sig, r, before_fn):
 
 
 def _zc_primary(h, v, d):
-    """Table D-1 class-A rule (H primary), vectorized — a 4.6M-element
-    table gather here costs ~100x these where-chains on TPU."""
+    """Table D-1 class-A rule (H primary), vectorized as where-chains
+    instead of a 4.6M-element table gather."""
     return jnp.where(
         h == 2, 8,
         jnp.where(h == 1, jnp.where(v >= 1, 7, jnp.where(d >= 1, 6, 5)),

@@ -11,9 +11,9 @@ data phase:
     (U, rho, ek, e1) words, every sample's field length
     m_n = rho_n ? U - ek_n : 0 is known, so field offsets are one prefix
     sum and the extraction is a flat gather from the unstuffed word pool —
-    exactly the shape TPUs like.  Fused with block->pyramid assembly and
-    the inverse DWT in ONE program, the decode side never uploads raw
-    coefficient planes (kills the dec.h2d line in PROFILE.md r4).
+    a data-parallel shape.  Fused with block->pyramid assembly and the
+    inverse DWT in ONE program, the decode side never uploads raw
+    coefficient planes.
 
 Capability bar: the reference's full HT decoder
 (/root/reference/internal/entropy/ht.go:93-864), which runs scalar per
@@ -129,7 +129,6 @@ def fused_decode_fn(n: int, n_comps: int, nl: int, plan_key: int,
     (~the compressed stream); the only download is the final narrow pixels.
     """
     from ..models.fused_encode import _PLANS
-    from ..models.transforms import _reconstruct
     from . import dwt, mct
     plan = _PLANS[plan_key]
     lossy = kind == dwt.IRR97
@@ -138,7 +137,7 @@ def fused_decode_fn(n: int, n_comps: int, nl: int, plan_key: int,
         blocks = magsgn_decode_blocks(qinfo, pool, woff, plan.cbh, plan.cbw)
         pyr = blocks_to_pyramid_dev(blocks, plan, n, n_comps, nl,
                                     dequant=lossy)
-        x = _reconstruct(pyr, kind, 0, 0)
+        x = dwt.reconstruct(pyr, kind)
         if use_mct and n_comps >= 3:
             if lossy:
                 r, g, b = mct.inverse_ict(x[:, 0], x[:, 1], x[:, 2])

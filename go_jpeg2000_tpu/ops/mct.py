@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -128,8 +129,11 @@ class CustomMCT:
     def forward(self, comps: jnp.ndarray) -> jnp.ndarray:
         """comps: [N, ...spatial] -> [N, ...spatial]."""
         m = jnp.asarray(self.matrix, dtype=jnp.float32)
-        return jnp.einsum("ij,j...->i...", m, comps.astype(jnp.float32))
+        # HIGHEST: a GPU may otherwise contract float32 in TF32
+        return jnp.einsum("ij,j...->i...", m, comps.astype(jnp.float32),
+                          precision=jax.lax.Precision.HIGHEST)
 
     def backward(self, comps: jnp.ndarray) -> jnp.ndarray:
         m = jnp.asarray(self.inverse, dtype=jnp.float32)
-        return jnp.einsum("ij,j...->i...", m, comps.astype(jnp.float32))
+        return jnp.einsum("ij,j...->i...", m, comps.astype(jnp.float32),
+                          precision=jax.lax.Precision.HIGHEST)

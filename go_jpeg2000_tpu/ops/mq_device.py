@@ -7,16 +7,15 @@ registers, 19-entry context state, carry/stuffing BYTEOUT and the
 OpenJPEG-compatible FLUSH — as masked vector ops inside one lax.scan.
 Divergence is handled by predication (inactive lanes and the
 renormalization shift count per decision), exactly the design SURVEY §7
-sketches.  All state-table lookups are one-hot contractions: a gather
-inside a scan costs ~18us/step on this platform, the one-hot form ~0.2us.
+sketches.  All state-table lookups are one-hot contractions instead of
+gathers inside the scan.
 
 Byte emission: each decision commits 0..3 bytes (15 renorm shifts max,
 first BYTEOUT after >=1 shift, then every 7-8).  Commits land in a dense
 staging buffer at static per-step columns (dynamic-update-slice, no
 scatter), then ONE key-sort per batch compacts them into per-lane rows
 and a second sort into the global byte pool the host fetches (the sort
-idiom from ops/ht_tpu.compact_pool — scatters are pathologically slow
-here, sorts are fast).
+idiom from ops/ht_tpu.compact_pool, scatter-free).
 
 Bit-exactness contract: feeding the same decision stream through
 ops/mq.MQEncoder yields byte-identical segments (tests/test_mq_device.py);

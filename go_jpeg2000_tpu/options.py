@@ -190,11 +190,12 @@ class Options:
     # (res_start, comp_start, layer_end, res_end, comp_end, order) tuples.
     progression_changes: Optional[Sequence[Tuple[int, int, int, int, int, int]]] = None
     # Entropy backend: "auto" | "native" | "python" | "device" | "hybrid".
-    # auto:   native C++ when available; on TPU the fused device HT path,
-    #         and for EBCOT the composition chosen by the MEASURED d2h
-    #         link (utils/envprobe): local-PCIe-class -> hybrid (device
-    #         decision kernel + host MQ), tunnel-class -> device transform
-    #         + host C++ T1 (the r4 hardware ablation's winners).
+    # auto:   native C++ entropy coding (raises if the library cannot be
+    #         built), the fused device HT path where eligible, and for
+    #         EBCOT the composition that timed fastest on an H100
+    #         (models/encoder.AUTO_EBCOT_PATH).
+    # native: as auto, but EBCOT always codes on the host (path C).
+    # python: the Python oracles (tests and reference only).
     # device: force the all-device EBCOT path (decision kernel + lockstep
     #         MQ on device; falls back if ineligible).
     # hybrid: force the device-decisions + host-MQ EBCOT composition.

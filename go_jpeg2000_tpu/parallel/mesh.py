@@ -4,7 +4,7 @@ The reference has no distributed layer (goroutine pool only,
 /root/reference/encoder.go:690-742); here tiles shard over a
 jax.sharding.Mesh: 'dp' = independent tiles/images (embarrassingly parallel
 — JPEG 2000 tiles are coded independently), 'sp' = spatial row sharding
-within a tile with DWT halo exchange over ICI (SURVEY.md §5.7).
+within a tile with DWT halo exchange between devices (SURVEY.md §5.7).
 """
 from __future__ import annotations
 

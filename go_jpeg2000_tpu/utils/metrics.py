@@ -18,6 +18,16 @@ Counter namespace (maintained by encoder.py / decoder.py / rate.py):
     enc.blocks_coded     code-blocks entropy-coded
     enc.passes_coded     coding passes emitted
     enc.truncation_points  pass boundaries available to PCRD
+    enc.fused_ht_frames  frames coded by the fused device HT program
+    enc.fused_cap_fallback  fused HT chunks whose stream pools overflowed
+                         every cap retry (coded on the host instead)
+    enc.ebcot_device_frames  frames coded by device EBCOT path A
+    enc.ebcot_hybrid_frames  frames coded by device EBCOT path B
+    enc.ebcot_cap_fallback  device EBCOT chunks that overflowed (host coded)
+    enc.device_transform_frames  frames/tiles through the device forward
+                         transform feeding host entropy coding
+    enc.sharded_transform_tiles  tiles through the mesh forward transform
+    enc.sharded_device_ht_tiles  tiles HT-coded on the mesh
     dec.bytes_in         codestream bytes consumed
     dec.pixels_out       pixels reconstructed
     dec.packets_parsed   packet headers parsed
@@ -27,6 +37,11 @@ Counter namespace (maintained by encoder.py / decoder.py / rate.py):
     dec.blocks_skipped   blocks outside the decode area (region decode)
     dec.tiles_decoded    tiles decoded
     dec.tiles_skipped    tiles outside the decode area
+    dec.device_ht_chunks  decode_batch chunks with device MagSgn decode
+    dec.device_transform_frames  frames/tiles through the device inverse
+                         transform after host entropy decoding
+    dec.sharded_transform_tiles  tiles through the mesh inverse transform
+    dec.sharded_device_ht_tiles  tiles with device MagSgn decode on the mesh
 """
 from __future__ import annotations
 

@@ -284,9 +284,9 @@ class TestMetadata:
         rng = np.random.RandomState(52)
         img = smooth(rng, 16, 16)
         data = jp2k.encode(img, Options(format=Format.J2K, lossless=True,
-                                        num_resolutions=2, comment="hello tpu"))
+                                        num_resolutions=2, comment="hello jpeg"))
         md = jp2k.decode_metadata(data)
-        assert "hello tpu" in md.comments
+        assert "hello jpeg" in md.comments
 
     def test_bad_data_raises(self):
         with pytest.raises(Exception):

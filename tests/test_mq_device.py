@@ -151,19 +151,35 @@ def test_encode_batch_hybrid_matches_host_and_roundtrips():
         assert np.array_equal(dec, f)
 
 
-def test_envprobe_path_selection():
-    """The auto EBCOT path selection: tunnel-class bandwidth -> 'host'
-    (path C), PCIe-class -> 'hybrid' (path B)."""
-    from go_jpeg2000_tpu.utils import envprobe
-    try:
-        envprobe.reset()
-        envprobe._cache["d2h"] = 20.0
-        assert envprobe.preferred_ebcot_path() == "host"
-        envprobe.reset()
-        envprobe._cache["d2h"] = 8000.0
-        assert envprobe.preferred_ebcot_path() == "hybrid"
-    finally:
-        envprobe.reset()
+@pytest.mark.parametrize("path,counter", [
+    ("device", "enc.ebcot_device_frames"),
+    ("hybrid", "enc.ebcot_hybrid_frames"),
+    ("host", "enc.device_transform_frames"),
+])
+def test_auto_ebcot_takes_recorded_winner(monkeypatch, path, counter):
+    """backend='auto' takes encoder.AUTO_EBCOT_PATH on every platform —
+    no probe, no platform test — and every path yields the host coder's
+    bytes."""
+    from go_jpeg2000_tpu.models import encoder
+    from go_jpeg2000_tpu.options import Format, Options
+    from go_jpeg2000_tpu.utils.metrics import counters
+
+    rng = np.random.RandomState(7)
+    frames = [rng.randint(0, 256, size=(64, 64)).astype(np.uint8)
+              for _ in range(2)]
+
+    def opts(backend):
+        return Options(format=Format.J2K, lossless=True, num_resolutions=3,
+                       high_throughput=False, backend=backend)
+
+    monkeypatch.setattr(encoder, "AUTO_EBCOT_PATH", path)
+    names = ("enc.ebcot_device_frames", "enc.ebcot_hybrid_frames",
+             "enc.device_transform_frames")
+    before = {k: counters.get(k) for k in names}
+    streams = encoder.encode_batch(frames, opts("auto"))
+    ran = {k: counters.get(k) - before[k] for k in names}
+    assert ran == {k: (len(frames) if k == counter else 0) for k in names}
+    assert streams == encoder.encode_batch(frames, opts("python"))
 
 
 def test_encode_batch_device_16bit_falls_back():

@@ -222,3 +222,72 @@ class TestColorspace:
         g = cs_ops.srgb_gamma(v)
         back = np.asarray(cs_ops.srgb_degamma(g))
         np.testing.assert_allclose(back, v, atol=1e-4)
+
+
+class TestTransformWrappers:
+    """models/transforms.py's batched forward and inverse programs against
+    the plain lifting in ops/dwt.py, over (frames, height, width) shapes
+    with odd-sized tails at deeper levels."""
+
+    @staticmethod
+    def _levels(h, w):
+        return max(1, min(3, int(np.log2(min(h, w)))))
+
+    @staticmethod
+    def _frames(shape, seed):
+        rng = np.random.RandomState(seed)
+        return rng.randint(-2000, 2000, size=shape).astype(np.int32)
+
+    @pytest.mark.parametrize("shape", [(1, 2, 2), (2, 64, 64), (1, 128, 256),
+                                       (4, 32, 128), (3, 8, 8)])
+    def test_forward_53_matches_dwt(self, shape):
+        from go_jpeg2000_tpu.models import transforms
+        from go_jpeg2000_tpu.ops import dwt
+        n, h, w = shape
+        x = self._frames(shape, shape[1])
+        levels = self._levels(h, w)
+        pyrs = transforms.run_forward_batch(x[:, None], levels, dwt.REV53,
+                                            False, 12, True, 0, 0)
+        ref = dwt.decompose(x, levels, dwt.REV53)
+        for i in range(n):
+            for lev, entry in enumerate(ref):
+                for k, band in entry.items():
+                    np.testing.assert_array_equal(pyrs[i][lev][k][0],
+                                                  np.asarray(band)[i])
+
+    @pytest.mark.parametrize("shape", [(1, 2, 2), (2, 64, 64), (1, 128, 256),
+                                       (3, 8, 8)])
+    def test_inverse_53_exact(self, shape):
+        from go_jpeg2000_tpu.models import transforms
+        from go_jpeg2000_tpu.ops import dwt
+        n, h, w = shape
+        x = self._frames(shape, shape[1] + 1)
+        levels = self._levels(h, w)
+        pyrs = transforms.run_forward_batch(x[:, None], levels, dwt.REV53,
+                                            False, 12, True, 0, 0)
+        rec = transforms.run_inverse_batch(pyrs, 1, levels, dwt.REV53,
+                                           False, 12, True, 0, 0)
+        np.testing.assert_array_equal(rec.reshape(n, h, w), x)
+        ref = dwt.reconstruct(dwt.decompose(x, levels, dwt.REV53),
+                              dwt.REV53)
+        np.testing.assert_array_equal(rec.reshape(n, h, w), np.asarray(ref))
+
+    @pytest.mark.parametrize("shape", [(2, 64, 64), (1, 128, 256), (3, 8, 8)])
+    def test_97_matches_dwt(self, shape):
+        from go_jpeg2000_tpu.models import transforms
+        from go_jpeg2000_tpu.ops import dwt
+        n, h, w = shape
+        x = self._frames(shape, shape[1] + 2)
+        levels = self._levels(h, w)
+        pyrs = transforms.run_forward_batch(x[:, None], levels, dwt.IRR97,
+                                            False, 12, True, 0, 0)
+        ref = dwt.decompose(x.astype(np.float32), levels, dwt.IRR97)
+        for i in range(n):
+            for lev, entry in enumerate(ref):
+                for k, band in entry.items():
+                    np.testing.assert_allclose(pyrs[i][lev][k][0],
+                                               np.asarray(band)[i],
+                                               rtol=1e-4, atol=1e-3)
+        rec = transforms.run_inverse_batch(pyrs, 1, levels, dwt.IRR97,
+                                           False, 12, True, 0, 0)
+        np.testing.assert_allclose(rec.reshape(n, h, w), x, atol=1)

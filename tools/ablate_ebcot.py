@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""EBCOT path ablation (VERDICT r3 ask #2b): measure, on the real device,
+"""EBCOT path ablation: measure, on the GPU,
 
   A. all-device: decision kernel + lockstep MQ + pool compaction
      (models/ebcot_fused.py, the r4 clz-renorm kernel)
@@ -7,8 +7,8 @@
      -> native host MQ over the streams (loader.mq_encode_streams)
   C. host: device transform -> fetch coefficients -> native C++ full T1
 
-Reports device/compute/fetch/host wall times and Mpix/s per path, with
-the tunnel bandwidth recorded alongside.  Segment byte-equality across
+Reports device/compute/fetch/host wall times and Mpix/s per path.
+Segment byte-equality across
 all three paths is asserted (same decisions -> same MQ bytes).
 """
 from __future__ import annotations
@@ -32,14 +32,8 @@ def natural_image(h, w, seed=0):
 
 def main():
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/jax_comp"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
     import jax.numpy as jnp
-    from go_jpeg2000_tpu.models import ebcot_fused, fused_encode, transforms
+    from go_jpeg2000_tpu.models import ebcot_fused, fused_encode
     from go_jpeg2000_tpu.models.encoder import build_header, _image_components
     from go_jpeg2000_tpu.native import loader
     from go_jpeg2000_tpu.ops import dwt, ebcot_device, mq_device
@@ -107,9 +101,8 @@ def main():
 
     @jax.jit
     def fn_b(bf):
-        from go_jpeg2000_tpu.models.transforms import _decompose
         x = bf.reshape(n, c, h, w).astype(jnp.int32) - 128
-        pyr = _decompose(x, 5, dwt.REV53, 0, 0)
+        pyr = dwt.decompose(x, 5, dwt.REV53)
         blocks = fused_encode._extract_blocks(pyr, plan, n, 5)
         B = n * plan.nb
         mags = jnp.abs(blocks)
@@ -149,9 +142,8 @@ def main():
     # ---------- C: device transform + host C++ full T1 ----------
     @jax.jit
     def fn_c(bf):
-        from go_jpeg2000_tpu.models.transforms import _decompose
         x = bf.reshape(n, c, h, w).astype(jnp.int32) - 128
-        pyr = _decompose(x, 5, dwt.REV53, 0, 0)
+        pyr = dwt.decompose(x, 5, dwt.REV53)
         return fused_encode._extract_blocks(pyr, plan, n, 5).astype(jnp.int16)
 
     def run_c_dev():

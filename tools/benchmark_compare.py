@@ -71,8 +71,4 @@ def main():
 
 
 if __name__ == "__main__":
-    import jax
-
-    if jax.devices()[0].platform != "tpu":
-        pass  # CPU comparison is still meaningful for the entropy stages
     main()

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Sub-stage timing of the fused HT encode device program: which of
 transform / field math / VLC table gather / bit-pack scan+sort / pool
-compaction actually burns the 18.9 ms (r4) — measured as deltas between
-progressively longer jitted prefixes of the same program, each synced with
-a 1-element readback (block_until_ready returns early on this platform).
+compaction takes the time — measured as deltas between progressively
+longer jitted prefixes of the same program, each synced with a 1-element
+readback.
 """
 from __future__ import annotations
 
@@ -26,16 +26,9 @@ def natural_image(h, w, seed=0):
 
 def main():
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/jax_comp"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
     import jax.numpy as jnp
     from go_jpeg2000_tpu.models import fused_encode
     from go_jpeg2000_tpu.models.encoder import build_header, _image_components
-    from go_jpeg2000_tpu.models.transforms import _decompose
     from go_jpeg2000_tpu.ops import dwt, ht_tpu
     from go_jpeg2000_tpu.options import Format, Options
     from go_jpeg2000_tpu.tcd import geometry as geo
@@ -59,7 +52,7 @@ def main():
 
     def blocks_of(bf):
         x = bf.reshape(n, c, h, w).astype(jnp.int32) - 128
-        pyr = _decompose(x, 5, dwt.REV53, 0, 0)
+        pyr = dwt.decompose(x, 5, dwt.REV53)
         return fused_encode._extract_blocks(pyr, plan, n, 5)
 
     def sync(x):

@@ -2,7 +2,7 @@
 """Per-stage profiling of the encode/decode pipeline (VERDICT r1 item 2).
 
 Times: transform dispatch+fetch, entropy, T2 assembly, decode parse,
-block decode, inverse transform.  Run on the driver TPU or CPU.
+block decode, inverse transform.
 """
 from __future__ import annotations
 
